@@ -1,6 +1,6 @@
 """Multi-device (sharded) RHF / DF-RHF run.
 
-The TPU analog of the reference's MPI launch scripts
+The analog of the reference's MPI launch scripts
 (example_inputs/Water/7_6/w7.6_112thread.sh, test/perlmutter_gpu.sh):
 instead of mpiexec ranks x GPUs, pass `num_devices` in the SCF keywords and
 the Fock build runs as one shard_map over a jax.sharding.Mesh —
@@ -8,10 +8,10 @@ the Fock build runs as one shard_map over a jax.sharding.Mesh —
                     psum-reduced J/K (models/df_sharded.py)
   scf_type "rhf" -> quartet batches sharded over the mesh
                     (ops/fock_sharded.py)
-On a multi-host pod, juliachem_jl_tpu.initialize() brings up
+On several hosts, juliachem_jl_tpu.initialize() brings up
 jax.distributed automatically (parallel/mesh.py::initialize_distributed).
 
-Try it without TPU hardware on a virtual 8-device CPU mesh:
+Try it without GPUs on a virtual 8-device CPU mesh:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/sharded_rhf.py input.json 8
 """

@@ -1,7 +1,7 @@
 """Spherical-harmonic basis option — beyond the (Cartesian-only) reference.
 
 `"spherical": true` in the model runs the SCF in the real solid-harmonic
-(2l+1) space; integrals stay in their Cartesian class-batched MXU form and
+(2l+1) space; integrals stay in their Cartesian class-batched form and
 one geometry-independent block transform bridges the two
 (basis/spherical.py).  Works across RHF/UHF/ROHF, DF, properties, RI-MP2
 and analytic gradients.

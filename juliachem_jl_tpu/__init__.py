@@ -1,15 +1,15 @@
-"""juliachem_jl_tpu — a TPU-native quantum chemistry framework.
+"""juliachem_jl_tpu — a quantum chemistry framework in JAX, run on GPUs.
 
 A from-scratch rebuild of the capabilities of JuliaChem.jl (j-hayes fork):
 restricted Hartree-Fock (conventional direct-SCF and density-fitted Fock
 builds), Schwarz screening, DIIS/damped convergence, hcore/SAD/DF guesses,
 molecular properties (Mulliken, dipole, MO energies, formation energies) and a
-QCSchema-style JSON driver — designed TPU-first in JAX/XLA/Pallas:
+QCSchema-style JSON driver — built as batched array programs in JAX/XLA:
 
 * Gaussian integrals are batched dense McMurchie-Davidson kernels over padded
   angular-momentum classes (replacing the reference's per-shell-quartet Libint
   C++ calls, ``deps/src/jeri-tei.hpp``).
-* J/K digestion and all density-fitting contractions are MXU einsums
+* J/K digestion and all density-fitting contractions are dense einsums
   (replacing BLAS/CUBLAS calls in ``src/rhf/energy/DensityFitting/*.jl``).
 * Distribution is SPMD over a ``jax.sharding.Mesh`` with psum/all_gather
   collectives (replacing the MPI rank/thread decomposition of
@@ -18,7 +18,7 @@ QCSchema-style JSON driver — designed TPU-first in JAX/XLA/Pallas:
 Public API mirrors the reference's module sequence
 (``JuliaChem.initialize / JCInput.run / JCBasis.run / JCMolecule.run /
 JCRHF.Energy.run / JCRHF.Properties.run / JuliaChem.finalize``, see
-``/root/reference/example_scripts/full-rhf-repl.jl``).
+the reference's ``example_scripts/full-rhf-repl.jl``).
 """
 
 from . import config  # noqa: F401  (enables x64 — must run before any jax use)
@@ -52,7 +52,7 @@ def initialize(force: bool = False) -> None:
         return
     import jax
 
-    # multi-host (DCN) runtime bring-up when a cluster environment is
+    # multi-host runtime bring-up when a cluster environment is
     # present — the MPI.Init() analog (no-op single-host)
     from .parallel.mesh import initialize_distributed
 

@@ -3,9 +3,9 @@
 The reference framework is Cartesian-only (its GAMESS-convention shells,
 BasisStructs.jl, carry ncart = (l+1)(l+2)/2 components and no 5d/7f option);
 this module adds the spherical-harmonic basis option on top of the same
-Cartesian MD integral engine.  TPU-first rationale: the integral kernels
-stay in their batched Cartesian form (where the MD E/R factorization is
-MXU-friendly), and sphericalization is ONE dense [nbf_cart, nbf_sph]
+Cartesian MD integral engine.  Rationale: the integral kernels stay in
+their batched Cartesian form (where the MD E/R factorization is
+matmul-shaped), and sphericalization is ONE dense [nbf_cart, nbf_sph]
 matmul applied to AO matrices — XLA fuses it into the surrounding
 contractions, and because the transform is geometry-independent
 (dT/dR = 0) analytic gradients need no new derivative kernels: the

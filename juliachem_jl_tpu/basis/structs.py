@@ -1,4 +1,4 @@
-"""Shell / Basis data structures, compiled for class-batched TPU kernels.
+"""Shell / Basis data structures, compiled for class-batched device kernels.
 
 Parity notes:
 * Shell normalization follows the reference's GAMESS convention — contraction
@@ -13,7 +13,7 @@ Parity notes:
   (BasisStructs.jl:31-33, nbas = am(am+1)/2 in its 1-based am convention).
 
 The "compiled" representation groups shells by angular momentum so integral
-kernels see fixed-shape, padded, batched inputs — the TPU-first replacement
+kernels see fixed-shape, padded, batched inputs — the batched replacement
 for the reference's per-shell-quartet Libint dispatch.
 """
 

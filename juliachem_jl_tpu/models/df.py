@@ -1,7 +1,7 @@
 """Density-fitted (RI) Fock build.
 
-Rebuild of DensityFitting/DensityFitting.jl + ScreenedDF.jl as pure MXU
-einsums:
+Rebuild of DensityFitting/DensityFitting.jl + ScreenedDF.jl as dense
+einsums (cuBLAS DGEMM on the card):
 
   iteration 1 (setup):
     (P|Q) metric, L = chol(P|Q)                 [form_J_AB_inv analog]
@@ -59,7 +59,8 @@ def build_B(primary, aux, opts=None, timings: Timings | None = None) -> np.ndarr
             if screen else None
         )
     with timings.timed(JCTC.three_center_time):
-        P3 = eri3c.three_center_tensor(primary, aux, pair_blocks)
+        P3 = eri3c.three_center_tensor(primary, aux, pair_blocks,
+                                       timings=timings)
     with timings.timed(JCTC.B_time):
         from .linalg import fold_metric
 
@@ -79,16 +80,22 @@ def build_B(primary, aux, opts=None, timings: Timings | None = None) -> np.ndarr
     return B.reshape(B.shape[0], nbf, nbf)
 
 
+# float32 products (the mixed-precision phase) would otherwise be free to
+# run in TF32 on the card; f64 products are unaffected
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
 @jax.jit
 def df_fock_kernel(B, D, Cocc):
-    """G = J - K/2 from the fitted tensor; all contractions MXU-shaped."""
+    """G = J - K/2 from the fitted tensor; all contractions matmul-shaped."""
     A, nbf = B.shape[0], B.shape[1]
     Bm = B.reshape(A, nbf * nbf)
-    V = Bm @ D.reshape(-1)                       # [A]
-    J = (V @ Bm).reshape(nbf, nbf)
-    W = jnp.einsum("qmn,mi->qin", B, Cocc)       # [A, occ, nbf]
+    V = jnp.matmul(Bm, D.reshape(-1), precision=HIGHEST)      # [A]
+    J = jnp.matmul(V, Bm, precision=HIGHEST).reshape(nbf, nbf)
+    W = jnp.einsum("qmn,mi->qin", B, Cocc,
+                   precision=HIGHEST)                        # [A, occ, nbf]
     Wm = W.reshape(-1, nbf)
-    Khalf = Wm.T @ Wm                            # = K/2 for D = 2 C C^T
+    Khalf = jnp.matmul(Wm.T, Wm, precision=HIGHEST)  # = K/2, D = 2 C C^T
     return J - Khalf
 
 
@@ -127,19 +134,19 @@ def df_fock_kernel_signed(B, D, Cocc, s):
 
 @jax.jit
 def df_fock_kernel_f32(B32, D, Cocc):
-    """f32 fast path for early SCF iterations (mixed-precision SCF).
+    """f32 path for early SCF iterations (mixed-precision SCF).
 
-    TPU f64 is software-emulated; far from convergence the Fock matrix only
-    needs ~1e-4 accuracy, so the J/K contractions run on the native-f32 MXU
-    path (~10x the emulated-f64 rate).  The driver guarantees the final
-    iterations (and hence the converged energy) run in f64.
+    Far from convergence the Fock matrix only needs ~1e-4 accuracy, so the
+    J/K contractions may run in f32 (full f32 products, never TF32).  The
+    driver guarantees the final iterations (and hence the converged
+    energy) run in f64.
     """
     G32 = df_fock_kernel(B32, D.astype(jnp.float32), Cocc.astype(jnp.float32))
     return G32.astype(jnp.float64)
 
 
 class DFFockBuilder(FockBuilder):
-    """Dense (single-device) DF Fock builder — the TPU analog of the
+    """Dense (single-device) DF Fock builder — the analog of the
     reference's DenseGPUDF.jl path, with screening applied to the 3-center
     build."""
 
@@ -148,7 +155,7 @@ class DFFockBuilder(FockBuilder):
         self.aux = auxiliary
         self.nbf = primary.nbf
         self.B = jnp.asarray(build_B(primary, auxiliary, opts, timings))
-        self.mixed = bool(getattr(opts, "mixed_precision", True)) if opts is not None else True
+        self.mixed = bool(getattr(opts, "mixed_precision", False))
         self.B32 = self.B.astype(jnp.float32) if self.mixed else None
         self.supports_f32_phase = self.mixed
 

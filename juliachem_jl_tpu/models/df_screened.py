@@ -1,6 +1,6 @@
 """Screened (packed-pq) density-fitted Fock build — the scale path.
 
-Rebuild of the reference's ScreenedDF.jl as TPU-native packed tensors:
+Rebuild of the reference's ScreenedDF.jl as packed device tensors:
 
   reference (ScreenedDF.jl)                  here
   -------------------------                  ----
@@ -11,21 +11,22 @@ Rebuild of the reference's ScreenedDF.jl as TPU-native packed tensors:
                                              orders packed; last col zero)
   per-p gemms over non-zero rows for W       on-the-fly per-Q-block tile
   (:242-289)                                 expansion (one gather) + batched
-                                             einsum on the MXU
+                                             einsum (DGEMM on the card)
   blocked lower-triangle exchange            Q-blocked exchange: the block
-  (:385-641) bounding the K workspace        bounds the expanded-tile HBM
-                                             footprint instead (the TPU
+  (:385-641) bounding the K workspace        bounds the expanded-tile
+                                             device footprint instead (the
                                              memory hog is the dense tile,
                                              not the K accumulator)
   screened symmetric J via per-p gemv        packed matvec pair
   (:318-365)                                 V = B d, J = V B
 
-Memory modes (chosen automatically from the B size vs an HBM budget):
-  device  — B64 resident in HBM (plus B32 for the mixed-precision phase)
+Memory modes (chosen automatically from the B size vs the card's memory,
+utils/memory.py):
+  device  — B64 resident on the card (plus B32 for the mixed-precision phase)
   stream  — B64 in host RAM, streamed per Q-block each f64 iteration;
-            B32 resident in HBM for the (cheap, frequent) f32 phase.
-The stream mode is what lifts the single-chip ceiling past the dense-B
-RESOURCE_EXHAUSTED wall (round-1 limit: w12).
+            B32 resident on the card for the f32 phase when it fits.
+The stream mode lifts the single-card ceiling past the size whose B fits
+in device memory.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils import memory
 from ..utils.timings import JCTC, Timings
 from .scf import FockBuilder
 
@@ -76,11 +78,6 @@ def build_packed_screen(primary, pair_blocks) -> PackedScreen:
     col_map = np.full(nbf * nbf, npq, dtype=np.int64)
     col_map[pq_flat] = np.arange(npq, dtype=np.int64)
     return PackedScreen(nbf=nbf, npq=npq, pq_flat=pq_flat, col_map=col_map)
-
-
-# RHS bytes per triangular-solve chunk; XLA's f64-on-TPU solve needs ~12x
-# this in HBM temps, so 8e8 keeps the solve under ~10 GB
-SOLVE_CHUNK_BUDGET = 8.0e8
 
 
 def build_B_packed(primary, aux, opts=None, timings: Timings | None = None):
@@ -123,22 +120,17 @@ def build_B_packed(primary, aux, opts=None, timings: Timings | None = None):
         timings.timings.setdefault(JCTC.three_center_time, 0.0)
     else:
         with timings.timed(JCTC.three_center_time):
-            # the 3-center builder accumulates in HOST memory for every size
-            # (round-4 redesign: device compute blocks, host scatter), so the
-            # round-3 "huge" aux-slab special case is gone — one code path
-            # from S22 monomers to w64.  b_dtype=f32 halves every B-sized
-            # relay transfer (build d2h, fold d2h, per-iteration stream h2d)
-            # at a deterministic ~1e-5 Eh shift of the DF fixed point — the
-            # w64-class option (d2h measured 16 MB/s).
+            # the 3-center builder accumulates in host memory for every
+            # size (device compute blocks, host scatter).  b_dtype=f32
+            # halves every B-sized transfer (build d2h, fold, per-iteration
+            # stream h2d) at a deterministic ~1e-5 Eh shift of the DF fixed
+            # point.
             P3 = eri3c.three_center_tensor(
                 primary, aux, pair_blocks, col_map=screen.col_map,
-                packed_width=npq1, out_dtype=b_dtype)
+                packed_width=npq1, out_dtype=b_dtype, timings=timings)
         if cache:
-            # checkpoint the unfolded tensor: at w32+ the 3c build costs
-            # ~1h of chip time and the fold another ~0.5-2h — a kill
-            # mid-fold (watchdog, OOM, session deadline) must not repeat
-            # the build (round-5: STALL_S=1500 watchdog killed the first
-            # w32 fold at t=5030s and threw away a 3518s 3c build)
+            # checkpoint the unfolded tensor, so that a run killed during
+            # the fold does not repeat the 3-center build
             _save_raw_cache(cache, primary, aux, sph_aux, P3)
     with timings.timed(JCTC.B_time):
         from .linalg import fold_metric
@@ -293,10 +285,19 @@ def _save_b_cache(prefix: str, primary, aux, B, screen,
 # ---------------------------------------------------------------- kernels
 
 
+# float32 products (mixed-precision phase, fdiff_f32 increments) would
+# otherwise be free to run in TF32 on the card; f64 products are unaffected
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=HIGHEST)
+
+
 @jax.jit
 def _v_chunk(Bc, d):
     """V_Qblock = B_block · d_packed (ScreenedDF.jl:318-340 analog)."""
-    return Bc @ d
+    return _mm(Bc, d)
 
 
 @jax.jit
@@ -308,11 +309,11 @@ def _jk_chunk(Khalf, Jp, Bc, Vc, col_map, Cocc):
     col_map (trash column = zeros), W = tile · Cocc, Khalf += W^T W.
     """
     nbf = Cocc.shape[0]
-    Jp = Jp + Vc @ Bc
+    Jp = Jp + _mm(Vc, Bc)
     tile = Bc[:, col_map].reshape(-1, nbf, nbf)
-    W = jnp.einsum("qmn,mi->qin", tile, Cocc)
+    W = jnp.einsum("qmn,mi->qin", tile, Cocc, precision=HIGHEST)
     Wm = W.reshape(-1, nbf)
-    Khalf = Khalf + Wm.T @ Wm
+    Khalf = Khalf + _mm(Wm.T, Wm)
     return Khalf, Jp
 
 
@@ -321,11 +322,11 @@ def _jk_chunk_signed(Khalf, Jp, Bc, Vc, col_map, Cs, s):
     """Signed variant for indefinite densities (fdiff dD): K is linear in D,
     so D = 2 sum_k s_k c_k c_k^T gives Khalf = sum_k s_k (W_k)^T W_k."""
     nbf = Cs.shape[0]
-    Jp = Jp + Vc @ Bc
+    Jp = Jp + _mm(Vc, Bc)
     tile = Bc[:, col_map].reshape(-1, nbf, nbf)
-    W = jnp.einsum("qmn,mi->qin", tile, Cs)
+    W = jnp.einsum("qmn,mi->qin", tile, Cs, precision=HIGHEST)
     Ws = W * s[None, :, None]
-    Khalf = Khalf + jnp.einsum("qim,qin->mn", Ws, W)
+    Khalf = Khalf + jnp.einsum("qim,qin->mn", Ws, W, precision=HIGHEST)
     return Khalf, Jp
 
 
@@ -336,9 +337,9 @@ def _jk_chunk_lower(Kup, Jp, Bc, Vc, col_map, Cs, s, nb):
     are computed, cutting the dominant W^T W gemm FLOPs by ~2x at scale.
     Handles both the C_occ (s=1) and signed-density (fdiff dD) cases."""
     nbf = Cs.shape[0]
-    Jp = Jp + Vc @ Bc
+    Jp = Jp + _mm(Vc, Bc)
     tile = Bc[:, col_map].reshape(-1, nbf, nbf)
-    W = jnp.einsum("qmn,mi->qin", tile, Cs)        # [qc, k, nbf]
+    W = jnp.einsum("qmn,mi->qin", tile, Cs, precision=HIGHEST)  # [qc,k,nbf]
     M = W.shape[0] * W.shape[1]
     kb = -(-nbf // nb)
     pad = nb * kb - nbf
@@ -352,7 +353,7 @@ def _jk_chunk_lower(Kup, Jp, Bc, Vc, col_map, Cs, s, nb):
     for I in range(nb):
         for J in range(I, nb):
             Kup = Kup.at[I * kb:(I + 1) * kb, J * kb:(J + 1) * kb].add(
-                Ws2[:, I, :].T @ W2[:, J, :])
+                _mm(Ws2[:, I, :].T, W2[:, J, :]))
     return Kup, Jp
 
 
@@ -362,17 +363,17 @@ def _jk_chunk_lower(Kup, Jp, Bc, Vc, col_map, Cs, s, nb):
 # re-reading it is free and the V/K phase telemetry stays meaningful)
 @jax.jit
 def _jk_chunk_fused(Khalf, Jp, Bc, d, col_map, Cocc):
-    return _jk_chunk(Khalf, Jp, Bc, Bc @ d, col_map, Cocc)
+    return _jk_chunk(Khalf, Jp, Bc, _mm(Bc, d), col_map, Cocc)
 
 
 @jax.jit
 def _jk_chunk_signed_fused(Khalf, Jp, Bc, d, col_map, Cs, s):
-    return _jk_chunk_signed(Khalf, Jp, Bc, Bc @ d, col_map, Cs, s)
+    return _jk_chunk_signed(Khalf, Jp, Bc, _mm(Bc, d), col_map, Cs, s)
 
 
 @partial(jax.jit, static_argnums=(7,))
 def _jk_chunk_lower_fused(Kup, Jp, Bc, d, col_map, Cs, s, nb):
-    return _jk_chunk_lower(Kup, Jp, Bc, Bc @ d, col_map, Cs, s, nb)
+    return _jk_chunk_lower(Kup, Jp, Bc, _mm(Bc, d), col_map, Cs, s, nb)
 
 
 @partial(jax.jit, static_argnums=(2,))
@@ -401,11 +402,6 @@ class ScreenedDFFockBuilder(FockBuilder):
     host-streamed f64 storage (the production scale path; replaces
     ScreenedDF.jl + GPUDF.jl's single-rank duties)."""
 
-    # HBM budget for resident B + one expanded tile (v5e: 16 GB total;
-    # leave room for XLA workspaces and the f32 copy)
-    DEVICE_B_BUDGET = 6.0e9
-    TILE_BUDGET = 1.5e9
-
     def __init__(self, primary, auxiliary, opts=None,
                  timings: Timings | None = None):
         timings = timings or Timings()
@@ -421,20 +417,22 @@ class ScreenedDFFockBuilder(FockBuilder):
         if n_blocks > 0:
             self.q_chunk = -(-A // n_blocks)
         else:
-            self.q_chunk = max(64, int(self.TILE_BUDGET / (8 * self.nbf**2)))
+            self.q_chunk = max(64, memory.budget_elements("df_exchange_tile")
+                               // self.nbf**2)
         self.q_chunk = min(self.q_chunk, A)
 
+        b_budget = memory.share_bytes("screened_df_b")
         b_bytes = B.nbytes  # dtype-aware (df_b_dtype="f32" halves this)
-        self.stream = b_bytes > self.DEVICE_B_BUDGET
-        self.mixed = bool(getattr(opts, "mixed_precision", True)) if opts is not None else True
+        self.stream = b_bytes > b_budget
+        self.mixed = bool(getattr(opts, "mixed_precision", False))
         if self.stream:
             self.B_host = B  # stays in host RAM (f64, or f32 via df_b_dtype)
             self.B = None
-            # f32 copy resident in HBM for the cheap phase (half the bytes);
+            # f32 copy resident on the card for the f32 phase (half the bytes);
             # if even that overflows, _iter_blocks streams host blocks cast
             # to f32 per iteration instead
             self.B32 = (jnp.asarray(B.astype(np.float32))
-                        if B.size * 4 <= self.DEVICE_B_BUDGET else None)
+                        if B.size * 4 <= b_budget else None)
         else:
             self.B_host = None
             self.B = jnp.asarray(B)
@@ -446,6 +444,8 @@ class ScreenedDFFockBuilder(FockBuilder):
         self.k_blocks = 4 if self.nbf >= 1024 else 1
         self._col_map = jnp.asarray(screen.col_map)
         self._pq_flat = jnp.asarray(screen.pq_flat)
+        timings.non_timing_data["df_b_storage"] = (
+            "host-streamed" if self.stream else "device")
 
     # -- helpers ---------------------------------------------------------
 

@@ -6,7 +6,7 @@ into rhf.energy: B is built with per-shard Q-row blocks
 runs as one shard_map over the mesh with psum-reduced J/K partials
 (parallel/shard.py::make_packed_fock_step, the MPI.Allreduce! analog).
 
-Per-device HBM holds A_pad/ndev rows of packed B — the memory axis that lets
+Each device holds A_pad/ndev rows of packed B — the memory axis that lets
 the aux dimension scale with the mesh (the reference's whole reason for
 GPUDF's device partition).
 """
@@ -16,15 +16,13 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
+from ..utils import memory
 from ..utils.timings import JCTC, Timings
 from .scf import FockBuilder
 
 
 class ShardedDFFockBuilder(FockBuilder):
     """Packed screened-pq DF Fock over a jax.sharding.Mesh."""
-
-    # per-device HBM budget for B64 + B32 copies (v5e: 16 GB/chip)
-    DEVICE_B_BUDGET = 9.0e9
 
     def __init__(self, primary, auxiliary, opts=None,
                  timings: Timings | None = None):
@@ -52,13 +50,11 @@ class ShardedDFFockBuilder(FockBuilder):
         self._fock = make_packed_fock_step(
             self.mesh, A_pad, screen.npq + 1, self.nbf, qc, n_chunks)
         # mixed-precision phase: a B32 shard alongside B64 when the combined
-        # per-device footprint fits (same f32/f64 ladder as df_screened —
-        # the early iterations only need ~1e-4 Fock accuracy and the f32 MXU
-        # path is several times the emulated-f64 rate)
-        mixed = bool(getattr(opts, "mixed_precision", True)) if opts is not None else True
+        # per-device footprint fits (same f32/f64 ladder as df_screened)
+        mixed = bool(getattr(opts, "mixed_precision", False))
         per_dev_bytes = (A_pad // n) * (screen.npq + 1) * 12
         self.B32 = None
-        if mixed and per_dev_bytes <= self.DEVICE_B_BUDGET:
+        if mixed and per_dev_bytes <= memory.share_bytes("sharded_df_b"):
             self.B32 = self.B.astype(jnp.float32)  # sharding-preserving cast
             self._fock32 = make_packed_fock_step(
                 self.mesh, A_pad, screen.npq + 1, self.nbf, qc, n_chunks,

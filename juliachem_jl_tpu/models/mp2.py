@@ -9,8 +9,8 @@ standard RI-MP2:
     (ia|jb) = sum_Q B_ia^Q B_jb^Q
     E2 = sum_{ijab} (ia|jb) [ 2 (ia|jb) - (ib|ja) ] / (e_i + e_j - e_a - e_b)
 
-TPU mapping: the AO->MO transform is two gemms; the ij-pair loop is a
-lax.scan of [nvirt, nvirt] gemms — all MXU work.  Multi-chip: the Q axis of
+Device mapping: the AO->MO transform is two gemms; the ij-pair loop is a
+lax.scan of [nvirt, nvirt] gemms — all DGEMM work.  Multi-device: the Q axis of
 B_ia is contracted locally per shard and psum'd (see parallel/shard.py
 pattern); the ij scan parallelizes over the mesh by i-blocks.
 """
@@ -67,9 +67,9 @@ def make_sharded_e2(mesh, npq1: int, nbf: int, nocc_pad: int, n_i_blk: int):
     """Sharded E2: packed-B shards -> local MO transform -> all_gather of
     B_ia over the mesh -> disjoint i-blocks per device -> scalar psum.
 
-    The multi-chip mapping sketched in the module docstring: the AO->MO
+    The multi-device mapping sketched in the module docstring: the AO->MO
     transform is local to each device's Q rows (zero comms), B_ia rides one
-    all_gather over ICI, and the ij-pair gemm scan splits its i axis across
+    all_gather, and the ij-pair gemm scan splits its i axis across
     the mesh (BASELINE.json "MP2 on S22 ... multi-chip" config).
 
     Padding conventions (all handled without masks): occupied/virtual

@@ -12,6 +12,7 @@ import time
 import numpy as np
 
 from ..utils import constants as C
+from ..utils import memory
 from ..utils.options import create_scf_options, print_scf_options
 from ..utils.timings import JCTC, Timings
 from . import scf as scf_mod
@@ -35,7 +36,8 @@ def _make_fock_builder(basis_sets, opts, prefer_df: bool, timings=None):
         #   dense    — full [A, nbf, nbf] B resident on device
         #   screened — packed screened-pq B, Q-blocked exchange, optional
         #              host-streamed f64 (the scale path)
-        #   default  — dense while it fits comfortably in HBM, else screened
+        #   default  — dense while B fits the "dense_df_b" share of the
+        #              card's memory (utils/memory.py), else screened
         if opts.num_devices > 1:
             from .df_sharded import ShardedDFFockBuilder
 
@@ -49,51 +51,49 @@ def _make_fock_builder(basis_sets, opts, prefer_df: bool, timings=None):
         use_screened = (
             mode == C.ContractionMode.screened
             or (mode == C.ContractionMode.default and not force_dense
-                and dense_bytes > 2.0e9)
+                and dense_bytes > memory.share_bytes("dense_df_b"))
         )
         cls = ScreenedDFFockBuilder if use_screened else DFFockBuilder
         return cls(basis_sets.primary, basis_sets.auxiliary, opts,
                    timings=timings)
     if opts.num_devices > 1:
         # quartet-sharded conventional Fock over the mesh (the analog of
-        # the reference's rank-parallel quartet walk, SCF.jl:683-744).
-        # Past the streaming threshold the batched builder's host index
-        # streams stop fitting exactly as in the single-device case, so the
-        # mesh path rides the same Schwarz-staircase device enumeration
-        # with its flat quartet space range-split over devices.
-        import os as _os
-
+        # the reference's rank-parallel quartet walk, SCF.jl:683-744),
+        # streaming past the same threshold as one device, with the flat
+        # quartet space range-split over devices
         from ..ops.fock_sharded import ShardedDirectFock
-        from ..ops.fock_stream import (ShardedStreamingFock,
-                                       count_screened_quartets)
+        from ..ops.fock_stream import ShardedStreamingFock
 
-        force = _os.environ.get("JCHEM_CONV_STREAM")
-        thresh = float(_os.environ.get("JCHEM_CONV_STREAM_THRESHOLD", 3e7))
-        if force == "1" or (force != "0" and count_screened_quartets(
-                basis_sets.primary) > thresh):
-            return ShardedStreamingFock(
-                basis_sets.primary, n_devices=opts.num_devices,
-                timings=timings)
-        return ShardedDirectFock(
-            basis_sets.primary, n_devices=opts.num_devices, timings=timings)
+        cls = (ShardedStreamingFock if use_streaming(basis_sets.primary)
+               else ShardedDirectFock)
+        return cls(basis_sets.primary, n_devices=opts.num_devices,
+                   timings=timings)
     if opts.contraction_mode == C.ContractionMode.dense and basis_sets.primary.nbf <= 160:
         return DenseFock(basis_sets.primary)
-    # past ~3e7 surviving quartets the class-batched builder's host index
-    # streams and per-quartet reduction plans stop fitting (16.7 GB host at
-    # w16, multi-TB at w64 — VERDICT r3); switch to the device-enumerated
-    # staircase walk, which is O(pairs) in both host and device memory
+    if use_streaming(basis_sets.primary):
+        from ..ops.fock_stream import StreamingDirectFock
+
+        return StreamingDirectFock(basis_sets.primary)
+    return ScreenedDirectFock(basis_sets.primary)
+
+
+def use_streaming(primary) -> bool:
+    """Whether the conventional Fock build streams its quartets.
+
+    Past ~3e7 Schwarz-surviving shell quartets the class-batched builder's
+    host index streams outgrow host memory, so the device-enumerated
+    staircase walk (ops/fock_stream.py), O(pairs) in host and device
+    memory, takes over.  JCHEM_CONV_STREAM=1/0 forces either way;
+    JCHEM_CONV_STREAM_THRESHOLD moves the threshold."""
     import os
 
-    from ..ops.fock_stream import StreamingDirectFock, count_screened_quartets
+    from ..ops.fock_stream import count_screened_quartets
 
     force = os.environ.get("JCHEM_CONV_STREAM")
-    if force == "1":
-        return StreamingDirectFock(basis_sets.primary)
-    if force != "0":
-        thresh = float(os.environ.get("JCHEM_CONV_STREAM_THRESHOLD", 3e7))
-        if count_screened_quartets(basis_sets.primary) > thresh:
-            return StreamingDirectFock(basis_sets.primary)
-    return ScreenedDirectFock(basis_sets.primary)
+    if force in ("0", "1"):
+        return force == "1"
+    thresh = float(os.environ.get("JCHEM_CONV_STREAM_THRESHOLD", 3e7))
+    return count_screened_quartets(primary) > thresh
 
 
 def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0) -> dict:
@@ -140,6 +140,7 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0) -> d
 
     fock_builder = _make_fock_builder(
         basis_sets, opts, prefer_df=use_df or df_guess, timings=timings)
+    timings.non_timing_data["fock_builder"] = type(fock_builder).__name__
     if sph_T is not None:
         fock_builder = scf_mod.SphericalFockAdapter(fock_builder, sph_T)
 
@@ -164,9 +165,8 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0) -> d
     )
     # benchmark support: after the SCF settles, time extra Fock builds on
     # the final density so the steady-state mean rests on >=N samples
-    # instead of the 3-5 post-f32-phase iterations a fast SCF leaves
-    # (VERDICT r4: "f64_steady_iters: 4 ... as the round's headline
-    # statistic. Thin.").  Pure timing reps: results are discarded.
+    # instead of the few iterations a fast SCF leaves.  Pure timing reps:
+    # results are discarded.
     reps = int(scf_flags.get("bench_fock_reps", 0))
     if reps > 0 and state.C is not None:
         C_occ = state.C[:, : state.nocc]
@@ -179,8 +179,7 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0) -> d
                     state.D, state.iteration + 1 + r, timings, C_occ))
             # marker: these are FULL builds dispatched back-to-back — a
             # different quantity from the in-SCF steady iterations (fdiff
-            # increments interleaved with host DIIS/eigensolve), and on
-            # the async relay they absorb pipeline-drain time.  Consumers
+            # increments interleaved with host DIIS/eigensolve).  Consumers
             # must exclude them from the steady-state mean (bench.py
             # reports them separately as full_fock_s_per_iter).
             timings.record("fock_rep", 1.0, state.iteration + 1 + r)

@@ -2,7 +2,7 @@
 
 This EXCEEDS the reference, which is RHF-only (src/rhf/energy/SCF.jl:69
 `rhf_kernel`; odd-electron systems are simply impossible there).  The design
-reuses the whole TPU-first stack: the same class-batched MD integrals, the
+reuses the whole stack: the same class-batched MD integrals, the
 same Fock digestion machinery (via the builders' ``two_electron_jk``
 interface) and the same host LAPACK Roothaan step — UHF is two coupled
 Roothaan problems sharing one Coulomb build:
@@ -25,6 +25,7 @@ import time
 import numpy as np
 
 from ..utils import constants as C
+from ..utils import memory
 from ..utils.options import create_scf_options
 from ..utils.timings import JCTC, Timings
 from ..ops.oei import overlap_kinetic_nuclear
@@ -269,8 +270,8 @@ def energy(mol, basis_sets, scf_flags: dict | None = None,
 
 def _make_jk_builder(basis_sets, opts, use_df: bool, timings):
     """Builders exposing two_electron_jk.  DF routes like the closed-shell
-    dispatcher (rhf._make_fock_builder): dense fitted-B while it fits
-    comfortably in HBM, else the packed screened path
+    dispatcher (rhf._make_fock_builder): dense fitted-B while it takes at
+    most the "dense_df_b" share of device memory, else the packed screened path
     (df_screened_jk.ScreenedDFJKBuilder)."""
     if use_df:
         from .df import DFFockBuilder
@@ -291,7 +292,8 @@ def _make_jk_builder(basis_sets, opts, use_df: bool, timings):
             mode == C.ContractionMode.screened
             or (mode == C.ContractionMode.default
                 and not opts.df_force_dense
-                and A * nbf * nbf * 8 > 2.0e9))
+                and A * nbf * nbf * 8
+                > memory.share_bytes("dense_df_b")))
         if use_screened:
             from .df_screened_jk import ScreenedDFJKBuilder
 

@@ -1,7 +1,7 @@
 """Static (trace-time) index tables for angular-momentum classes.
 
 Everything here is plain numpy computed once per (la, lb[, lc, ld]) class and
-baked into the jitted kernels as constants — the TPU-first replacement for the
+baked into the jitted kernels as constants — the batched replacement for the
 reference's per-quartet recursive dispatch.  Tables:
 
 * Hermite index enumeration (t,u,v with t+u+v <= L) and its index map.
@@ -9,7 +9,7 @@ reference's per-quartet recursive dispatch.  Tables:
   Hermite expansion matrices E[comp_pair, hermite].
 * The combination map R_combined[h_bra, h_ket] = (-1)^{|h_ket|} R[h_bra+h_ket]
   used to express a shell-quartet ERI block as two batched matmuls
-  (MXU-friendly; replaces the scalar 6-loop digestion of jeri-tei.hpp).
+  (matmul-shaped; replaces the scalar 6-loop digestion of jeri-tei.hpp).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference parallelizes the conventional Fock build by walking the
 composite triangular shell-quartet index space in strided batches across
 MPI ranks x threads (SCF.jl:683-744, Indicies.jl:5-7) and Allreducing the
-per-rank skeleton Fock (SCF.jl:623).  The TPU-native equivalent: the
+per-rank skeleton Fock (SCF.jl:623).  The mesh equivalent: the
 Schwarz-screened symmetry-unique quartet batches (ops/fock.py) are padded
 and sharded over the flattened device mesh on the quartet axis; every device
 runs the same class kernel + digestion on its quartet shard, accumulating a

@@ -20,10 +20,11 @@ w16 (VERDICT r3).  This builder removes every O(quartets) array:
   class kernel, and digests straight into the J/K workspaces with
   scatter-adds.
 
-Memory: host O(pairs), device O(pairs + chunk).  The scatter-add digestion
-is slower per iteration than ops/fock.py's conflict-free gather-sum plan, so
-this builder is selected only when the plan volume would not fit (see
-models/rhf.py); correctness is identical (same quartet set, same weights).
+Memory: host O(pairs), device O(pairs + chunk).  It evaluates every ERI on
+every iteration, where ops/fock.py caches them in device memory when they
+fit, so this builder is selected only past the point where ops/fock.py's
+host index streams would not fit (see models/rhf.py); correctness is
+identical (same quartet set, same weights).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ This is the mathematical engine replacing Libint's Obara-Saika recursion in
 the reference's JERI layer (deps/src/jeri-{oei,tei,df-tei}.hpp).  All
 recurrences run at trace time over *static* angular momenta, producing pure
 tensor programs over batched primitive data — no data-dependent control flow,
-so XLA can fuse and tile everything onto the MXU/VPU.
+so XLA can fuse and tile everything.
 
 Conventions (Helgaker/Jorgensen/Olsen ch. 9):
   E_t^{ij}  — Hermite expansion coefficients of a 1D Gaussian product,
@@ -25,8 +25,8 @@ from .class_tables import herm_list, pair_tables
 def _xp(x):
     """Array namespace for x: numpy for host (setup-phase) calls, jnp under
     trace.  The recurrences are pure array programs, so the same code serves
-    both; the host path exists because XLA compilation of these class
-    kernels costs ~40 s each on this 1-core host."""
+    both; the host path serves small setup-phase batches, where compiling a
+    class kernel would cost more than evaluating it with numpy."""
     return np if isinstance(x, np.ndarray) else jnp
 
 
@@ -100,33 +100,15 @@ def e_dense(la: int, lb: int, prim) -> jnp.ndarray:
     return xp.stack(rows, axis=-3)                    # [N,K2,3,la+1,lb+1,L+1]
 
 
-def hermite_expansion(la: int, lb: int, prim, fold_coefs: bool = True,
-                      barrier: bool = False) -> jnp.ndarray:
+def hermite_expansion(la: int, lb: int, prim, fold_coefs: bool = True) -> jnp.ndarray:
     """Bra/ket Hermite expansion matrix Eab[N, K2, nca*ncb, nherm(la+lb)].
 
     Axial normalization factors and (optionally) the primitive-pair
     contraction coefficients are folded in, so downstream contraction is a
     pure matmul over the Hermite axis.
-
-    barrier=True is required by the conventional 4-center path, which needs
-    ~1e-13 relative ERI accuracy (see below); the 3-center DF path leaves it
-    off — its end-to-end tolerance is 1.5e-3 Eh vs conventional, and the
-    barrier costs ~3x in the w16 3-center build (157 s -> 459 s measured).
     """
     tab = pair_tables(la, lb)
     E = e_dense(la, lb, prim)
-    if barrier and not isinstance(E, np.ndarray):
-        # Materialize the E table before the component gather/fold.  Without
-        # this barrier XLA:TPU fuses the E recurrences into the gathered
-        # products and the emulated-f64 codegen of that fused graph loses
-        # ~2e-8 relative accuracy on (p,d)-pair classes (measured on v5e;
-        # every other class and every stage in isolation is exact to 1e-13).
-        # The barrier forces the same compilation split as the staged
-        # programs, which are bit-accurate, and costs only one HBM round
-        # trip of E.
-        import jax
-
-        E = jax.lax.optimization_barrier(E)
     Ex, Ey, Ez = E[:, :, 0], E[:, :, 1], E[:, :, 2]
 
     ixa = tab["ix_a"][:, :, None]

@@ -1,6 +1,6 @@
 """First-derivative one-electron integrals (gradients of S, T, V).
 
-TPU-native equivalent of the reference's OEIEngine derivative blocks
+Batched equivalent of the reference's OEIEngine derivative blocks
 (deps/src/jeri-oei.hpp:67-199, compute_*_grad_block) and their assembly in
 src/rhf/gradient/GradHelpers.jl:65-467 — built on the same batched
 McMurchie-Davidson machinery as ops/oei.py using the exact operator identity

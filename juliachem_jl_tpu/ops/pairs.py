@@ -1,6 +1,6 @@
 """Shell-pair enumeration into class-shaped batch arrays.
 
-The TPU analog of the reference's precomputed ShellPair list
+The batched analog of the reference's precomputed ShellPair list
 (deps/src/jeri-core.hpp:77-89): for each angular-momentum class pair we build
 padded numpy batch arrays that feed the jitted integral kernels with fixed
 shapes.  Schwarz masking later prunes these lists (SchwarzScreening.jl analog)

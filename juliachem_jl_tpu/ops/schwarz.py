@@ -2,7 +2,7 @@
 
 Q_ab = sqrt(max |(ab|ab)|) per shell pair; |(ab|cd)| <= Q_ab Q_cd.
 Replaces EnergyHelpers.compute_schwarz_bounds (EnergyHelpers.jl:172-204) and
-feeds the DF screening criterion of SchwarzScreening.jl.  On TPU the bounds
+feeds the DF screening criterion of SchwarzScreening.jl.  Here the bounds
 become *static masks* used to prune padded quartet batches at setup time and
 to drop pq columns from the DF B tensor — never data-dependent control flow.
 """

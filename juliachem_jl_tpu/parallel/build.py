@@ -4,12 +4,9 @@ The reference distributes the 3-center + B work and memory across
 ranks x GPUs with a static auxiliary partition (GPUDF.jl:828-1008,
 DynamicLoad.jl:160-203).  Here each mesh device owns a contiguous block of
 auxiliary *shells* (hence a contiguous block of B's Q rows); the per-block
-3-center tensors are built independently — on a real pod each block's build
-runs on its owning device, and the metric solve's cross-row coupling becomes
-a column-chunked psum_scatter of Linv·P3 over ICI.  On a single host (this
-environment) the blocks are built sequentially and the assembled B is
-device_put with the production sharding, which still gives the per-device
-HBM footprint of A/ndev rows.
+3-center tensors are built independently; the blocks are built one after
+another on the host process and the assembled B is device_put with the
+production sharding, which gives each device a footprint of A/ndev rows.
 """
 
 from __future__ import annotations
@@ -21,6 +18,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..basis.structs import Basis, compile_basis
+from ..utils import memory
 from ..utils.timings import JCTC, Timings
 
 
@@ -44,8 +42,7 @@ def partition_aux_shells(aux: Basis, ndev: int) -> list[tuple[int, int]]:
 
 
 def build_B_packed_sharded(primary: Basis, aux: Basis, mesh: Mesh,
-                           opts=None, timings: Timings | None = None,
-                           tile_budget: float = 1.5e9):
+                           opts=None, timings: Timings | None = None):
     """Build packed B with per-shard Q-row blocks and place it sharded.
 
     Returns (B_sharded [A_pad, npq+1] on P(("q","k"), None), screen,
@@ -65,7 +62,7 @@ def build_B_packed_sharded(primary: Basis, aux: Basis, mesh: Mesh,
         screen = build_packed_screen(primary, pair_blocks)
     npq1 = screen.npq + 1
 
-    # per-shard 3-center row blocks (sequential here; per-device on a pod)
+    # per-shard 3-center row blocks, built one after another
     with timings.timed(JCTC.three_center_time):
         parts = []
         for s0, s1 in partition_aux_shells(aux, ndev):
@@ -75,7 +72,7 @@ def build_B_packed_sharded(primary: Basis, aux: Basis, mesh: Mesh,
             sub = subset_basis(aux, range(s0, s1))
             parts.append(eri3c.three_center_tensor(
                 primary, sub, pair_blocks, col_map=screen.col_map,
-                packed_width=npq1))
+                packed_width=npq1, timings=timings))
         P3 = np.concatenate(parts, axis=0)  # rows in global aux order
 
     with timings.timed(JCTC.B_time):
@@ -95,7 +92,8 @@ def build_B_packed_sharded(primary: Basis, aux: Basis, mesh: Mesh,
     A = B.shape[0]
     nbf = primary.nbf
     A_l0 = -(-A // ndev)
-    qc = max(16, min(A_l0, int(tile_budget / (8 * nbf * nbf))))
+    tile = memory.budget_elements("df_exchange_tile")
+    qc = max(16, min(A_l0, tile // (nbf * nbf)))
     n_chunks = -(-A_l0 // qc)
     A_pad = ndev * n_chunks * qc
     if A_pad != A:

@@ -1,6 +1,6 @@
 """Device mesh construction.
 
-The TPU replacement for the reference's MPI rank topology (flat COMM_WORLD
+The replacement for the reference's MPI rank topology (flat COMM_WORLD
 with rank 0 as coordinator, SURVEY.md §2.3): a jax.sharding.Mesh with named
 axes
   "q" — auxiliary-basis (Q) shards for the DF B tensor: the direct analog of
@@ -29,14 +29,14 @@ def make_mesh(n_devices: int | None = None, k_axis: int = 1) -> Mesh:
 
 
 def initialize_distributed() -> bool:
-    """Multi-host (DCN) runtime bring-up — the analog of the reference's
-    MPI.Init() across nodes (JCRuntime.jl:6-16).
+    """Multi-host runtime bring-up (hosts joined by a network) — the analog
+    of the reference's MPI.Init() across nodes (JCRuntime.jl:6-16).
 
     Calls jax.distributed.initialize() when a cluster environment is
-    detected (JAX auto-detects TPU pods, GKE, Slurm and Open MPI via
-    ``jax.distributed``'s cluster plugins; explicit coordination falls back
-    to the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    variables).  Single-process runs are a no-op.  Idempotent.
+    detected (Slurm and Open MPI via ``jax.distributed``'s cluster plugins;
+    explicit coordination uses the JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID variables).  Single-process runs
+    are a no-op.  Idempotent.
     Returns True if a multi-process runtime is (now) active.
     """
     import os
@@ -60,13 +60,7 @@ def initialize_distributed() -> bool:
     # process — a single-process shell inside a multi-task SLURM allocation
     # (or with stale MPI variables) must NOT block waiting for peers.
     # JCHEM_DISTRIBUTED=1 forces the attempt regardless.
-    n_tpu_hosts = len([h for h in env.get(
-        "TPU_WORKER_HOSTNAMES", "").split(",") if h.strip()])
-    cluster = (
-        _multi("SLURM_NTASKS") or _multi("OMPI_COMM_WORLD_SIZE")
-        or n_tpu_hosts > 1
-        or "MEGASCALE_COORDINATOR_ADDRESS" in env
-    )
+    cluster = _multi("SLURM_NTASKS") or _multi("OMPI_COMM_WORLD_SIZE")
     forced = env.get("JCHEM_DISTRIBUTED") == "1"
     if not explicit and not cluster and not forced:
         return False
@@ -92,12 +86,13 @@ def make_global_mesh(k_axis: int | None = None) -> Mesh:
     "q" (auxiliary-row) axis spans hosts and the "k" axis stays inside a
     host.
 
-    Rationale (scaling-book recipe): the per-iteration collectives on "k"
-    (all_gather of W / G columns, parallel/shard.py) move O(nbf^2) data every
-    Fock build and must ride ICI; the "q" axis only psums the final
-    [nbf, ncol] partials once per iteration, so it tolerates DCN.  This is
-    the DCN story the reference handles with MPI ranks spanning nodes
-    (GPUDF.jl's rank x device virtual-rank grid, :1011-1055).
+    Rationale: the per-iteration collectives on "k" (all_gather of W / G
+    columns, parallel/shard.py) move O(nbf^2) data every Fock build and
+    belong on the links inside a host; the "q" axis only psums the final
+    [nbf, ncol] partials once per iteration, so it tolerates the network
+    between hosts.  The reference handles the same split with MPI ranks
+    spanning nodes (GPUDF.jl's rank x device virtual-rank grid,
+    :1011-1055).
     """
     initialize_distributed()
     n_local = jax.local_device_count()
@@ -112,24 +107,23 @@ def make_global_mesh(k_axis: int | None = None) -> Mesh:
     from jax.experimental import mesh_utils
 
     if k_axis % n_local == 0 and k_axis >= n_local:
-        dcn = (n // k_axis, k_axis // n_local)
-        ici = (1, n_local)
+        between = (n // k_axis, k_axis // n_local)
+        within = (1, n_local)
     else:
         # k within host, q split across hosts (and within host if q > hosts)
         if n_local % k_axis != 0:
             raise ValueError(
                 f"k_axis={k_axis} must divide local device count {n_local} "
                 f"(or be a multiple of it)")
-        dcn = (n_hosts, 1)
-        ici = (n_local // k_axis, k_axis)
+        between = (n_hosts, 1)
+        within = (n_local // k_axis, k_axis)
     try:
         arr = mesh_utils.create_hybrid_device_mesh(
-            ici, dcn, devices=jax.devices())
+            within, between, devices=jax.devices())
     except ValueError:
-        # backends without slice topology metadata (CPU multi-process, some
-        # emulators): build the same host-major layout explicitly — q spans
-        # hosts, k contiguous within a host — which is what the hybrid
-        # helper degenerates to for a 1D ICI ring
+        # backends without slice metadata (CPU multi-process): build the
+        # same host-major layout explicitly — q spans hosts, k contiguous
+        # within a host
         devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
         arr = np.array(devs).reshape(n // k_axis, k_axis)
     return Mesh(arr, ("q", "k"))

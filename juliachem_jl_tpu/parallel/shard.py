@@ -13,8 +13,8 @@ shard_map'd einsums (SURVEY.md §7 step 7):
   exchange block loops (ScreenedDF.jl)       K columns sharded over "k"
   MPI.Bcast! of C each iteration             implicit replication
 
-All collectives ride ICI; nothing here depends on the number of devices at
-trace time except the static shard shapes.
+XLA hands the collectives to NCCL; nothing here depends on the number of
+devices at trace time except the static shard shapes.
 """
 
 from __future__ import annotations
@@ -112,9 +112,11 @@ def make_packed_fock_step(mesh: Mesh, A_pad: int, npq1: int, nbf: int,
     ±1 for indefinite fdiff densities).
 
     dtype=float32 gives the mixed-precision early-SCF phase (same f32/f64
-    ladder as the single-chip df_screened path): contractions run on the
-    native-f32 MXU path against a B32 shard; G returns as f64 either way.
+    ladder as the single-device df_screened path): contractions run as full
+    f32 products (never TF32) against a B32 shard; G returns as f64 either
+    way.
     """
+    hi = jax.lax.Precision.HIGHEST
     axes = ("q", "k")
 
     def local_fock(B_blk, d, Cs, s, col_map, pq_flat):
@@ -124,12 +126,12 @@ def make_packed_fock_step(mesh: Mesh, A_pad: int, npq1: int, nbf: int,
 
         def body(carry, Bc):
             Khalf, Jp = carry
-            Vc = Bc @ d
-            Jp = Jp + Vc @ Bc
+            Vc = jnp.matmul(Bc, d, precision=hi)
+            Jp = Jp + jnp.matmul(Vc, Bc, precision=hi)
             tile = Bc[:, col_map].reshape(q_chunk, nbf, nbf)
-            W = jnp.einsum("qmn,mi->qin", tile, Cs)
+            W = jnp.einsum("qmn,mi->qin", tile, Cs, precision=hi)
             Ws = W * s[None, :, None]
-            Khalf = Khalf + jnp.einsum("qim,qin->mn", Ws, W)
+            Khalf = Khalf + jnp.einsum("qim,qin->mn", Ws, W, precision=hi)
             return (Khalf, Jp), 0
 
         (Khalf, Jp), _ = jax.lax.scan(body, (Khalf0, Jp0), Br)

@@ -2,8 +2,8 @@
 
 Parity with reference src/shared/Constants.jl (SCF_Keywords namespaces).  The
 string keys are kept identical so reference JSON inputs run unmodified; the
-semantics of a few GPU/MPI-specific knobs are re-interpreted for the TPU mesh
-(documented per-field).
+semantics of a few GPU/MPI-specific knobs are re-interpreted for the JAX
+device mesh (documented per-field).
 """
 
 
@@ -23,7 +23,7 @@ class Screening:
     df_screening_sigma = "df_sigma"
     df_screening_sigma_default = 1e-5
     df_screen_exchange = "df_exchange_screen"
-    df_screen_exchange_default = True  # TPU default: masks are cheap
+    df_screen_exchange_default = True  # masks are cheap
 
 
 class Guess:
@@ -53,16 +53,16 @@ class Convergence:
 
 class ContractionMode:
     """Constants.jl:45-50.  'dense' keeps full padded tensors; 'screened'
-    applies Schwarz block masks (the TPU analog of sparse pq indexing)."""
+    applies Schwarz block masks (the analog of sparse pq indexing)."""
 
     key = "contraction_mode"
-    default = "default"   # auto: dense DF while B fits HBM, else screened/packed
+    default = "default"   # auto: dense DF while B is small next to device memory, else screened/packed
     dense = "dense"
     screened = "screened"
 
 
 class IntegralLoad:
-    """Constants.jl:52-57.  On TPU all modes lower to static SPMD sharding:
+    """Constants.jl:52-57.  All modes lower to static SPMD sharding:
     the reference's dynamic coordinator-worker scheduler has no SPMD analog
     (SURVEY.md §5)."""
 

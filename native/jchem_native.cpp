@@ -2,7 +2,7 @@
 //
 // Role parity with the reference's C++ layer (deps/src/jeri-*.hpp): the
 // reference keeps its integral engine in C++; here the integral *compute*
-// lives on the TPU (Pallas/XLA), and the native layer instead owns the
+// lives on the device (XLA), and the native layer instead owns the
 // host-side combinatorial setup that feeds the device — Schwarz-screened
 // quartet enumeration and shell-pair bookkeeping — which is O(n_pairs^2)
 // and must stream rather than materialize (a numpy meshgrid of w50's

@@ -66,3 +66,27 @@ def test_s22x3_vs_gamess(name):
 def test_goldens_fixture_integrity():
     assert len(GOLDEN) == 25
     assert GOLDEN["ammonia_trimer"]["energy"] == -168.6658358894
+
+
+@pytest.mark.parametrize("name,streams", [("ammonia_trimer", False),
+                                          ("benzene_water_2", True)])
+def test_conventional_builder_choice(monkeypatch, name, streams):
+    """The screened quartet count alone picks the streaming builder:
+    ammonia_trimer (5.8e6 quartets) stays class-batched, benzene_water_2
+    (4.5e7) streams, with no environment override."""
+    from juliachem_jl_tpu import basis, io, molecule
+    from juliachem_jl_tpu.models import rhf
+
+    monkeypatch.delenv("JCHEM_CONV_STREAM", raising=False)
+    monkeypatch.delenv("JCHEM_CONV_STREAM_THRESHOLD", raising=False)
+    g = GOLDEN[name]
+    spec = io.parse_input({
+        "molecule": {"symbols": [a["symbol"] for a in g["atoms"]],
+                     "geometry": [x * BOHR for a in g["atoms"]
+                                  for x in a["xyz_bohr"]],
+                     "molecular_charge": 0},
+        "driver": "energy",
+        "model": {"method": "RHF", "basis": g["basis"]},
+    })
+    bsets = basis.run(molecule.run(spec), spec.model)
+    assert rhf.use_streaming(bsets.primary) is streams

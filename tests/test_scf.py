@@ -52,11 +52,9 @@ def test_water_ccpvdz_df_parity():
 
 
 def test_stagnation_exit_on_noisy_backend():
-    # Emulated-f64 backends (XLA:TPU) carry a deterministic noise floor in
-    # the Fock build: d_rms limit-cycles ~1e-6 while the energy is pinned.
-    # The driver must exit converged (state.stagnated set) instead of
-    # burning the iteration budget (observed: S22 S03 DF on-device, 60
-    # iterations at rmsd 5e-6 with E within 2.6e-7 Eh of the fixed point).
+    # A Fock build with a deterministic noise floor makes d_rms limit-cycle
+    # while the energy is pinned.  The driver must exit converged
+    # (state.stagnated set) instead of burning the iteration budget.
     from juliachem_jl_tpu.models import scf as scf_mod
     from juliachem_jl_tpu.ops.fock import DenseFock
     from juliachem_jl_tpu.utils.options import create_scf_options

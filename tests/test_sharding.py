@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh.
 
-The TPU analog of the reference's multi-node MPI runs (SURVEY.md §4): the
+The analog of the reference's multi-node MPI runs (SURVEY.md §4): the
 sharded DF Fock build must agree with the single-device dense kernel to
 machine precision, on several mesh shapes.
 """
@@ -111,8 +111,9 @@ def test_conventional_num_devices_end_to_end():
 
 def test_multihost_helpers_single_host():
     """Single-host: initialize_distributed is a no-op and make_global_mesh
-    yields the full local mesh (the DCN path itself needs a real pod; the
-    host-spanning layout logic is exercised via the hybrid shapes below)."""
+    yields the full local mesh (the multi-host path itself needs several
+    hosts; the host-spanning layout logic is exercised via the hybrid
+    shapes below)."""
     import jax
 
     from juliachem_jl_tpu.parallel import mesh as mesh_mod

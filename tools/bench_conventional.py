@@ -1,7 +1,7 @@
 """Conventional (screened direct) Fock benchmark on device.
 
 VERDICT r1 item 8: the BASELINE configs list conventional-RHF systems
-(w-cluster and S22) but only the DF path had ever been timed on the TPU.
+(w-cluster and S22) but only the DF path had ever been timed on a device.
 This measures the ScreenedDirectFock per-iteration build (ops/fock.py), the
 analog of the reference's rfh_fock_build (SCF.jl:606-744), on:
   - the first NW waters of the w7.6 cluster at 6-31G* (conventional),

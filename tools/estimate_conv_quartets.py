@@ -63,7 +63,7 @@ for i, (bb, qb, nb, nab) in enumerate(kept):
         # six image streams: ab, cd, ac, ad, bc, bd
         img = (nca * ncb + ncc * ncd_ + nca * ncc + nca * ncd_
                + ncb * ncc + ncb * ncd_)
-        idx_bytes += n * img * 8 * 2  # int64 streams + GatherPlan copy
+        idx_bytes += n * img * 8 * 2  # int64 streams + scatter target copy
         eri_elems += n * nca * ncb * ncc * ncd_
 
 print(f"NW={NW} nbf={b.nbf} nshell={b.nshell} kept_pairs={total_pairs}")

@@ -94,7 +94,7 @@ def run_system(n: int, data: dict) -> None:
 
 def _other_instance() -> int | None:
     """PID of another live run_gly.py process, if any.  Two concurrent
-    instances (a CPU-side run and the TPU queue's) would race on
+    instances would race on
     GLY_RESULTS.json writes and redo each other's systems."""
     skip = set()
     pid = os.getpid()

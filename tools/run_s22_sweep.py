@@ -14,8 +14,7 @@ Usage: python tools/run_s22_sweep.py [first_n] [--df-only|--conv-only]
                                      [--order=size] [--timeout=SECONDS]
 
 --order=size runs systems smallest-first (by atom count): on a slow backend
-(CPU fallback during TPU outages) this maximizes the number of completed
-golden checks per wall-hour.
+this maximizes the number of completed golden checks per wall-hour.
 """
 
 from __future__ import annotations
@@ -102,12 +101,8 @@ with warnings.catch_warnings():
         basis.build_auxiliary(mol, "cc-pVTZ-JKFIT", spec.model["basis"]),
     )
 # 1e-8/5e-6 is far tighter than the 1.5e-3 Eh golden gate and than the
-# reference's own DF CI (Constants.jl defaults dele=rmsd=1e-3).  The rmsd
-# gate sits above the TPU emulated-f64 noise floor: on-device DF SCF
-# deterministically limit-cycles at rmsd ~1e-6 (S03: 60 iters, E within
-# 2.6e-7 Eh of the true fixed point) while the identical run on CPU
-# reaches rmsd 1e-10 in 17 iterations — energy error from rmsd r is
-# O(r^2), irrelevant at the golden tolerance.
+# reference's own DF CI (Constants.jl defaults dele=rmsd=1e-3); energy
+# error from rmsd r is O(r^2), irrelevant at the golden tolerance.
 res = rhf.energy(mol, bsets, {{"scf_type": "df", "niter": 60, "dele": 1e-8,
                                "rmsd": 5e-6, "guess": "sad",
                                "df_b_cache": "{repo}/runs/s22_{imol:02d}",
@@ -276,8 +271,8 @@ def main():
                         os.remove(cache_prefix + sfx)
                     except OSError:
                         pass
-            # merge-on-write: a conv sweep (CPU fallback) and a df sweep
-            # (TPU queue) may run concurrently; re-read so neither clobbers
+            # merge-on-write: a conv sweep and a df sweep may run
+            # concurrently; re-read so neither clobbers
             # the other's completed systems
             if os.path.exists(path):
                 with open(path) as f:
